@@ -1,18 +1,18 @@
-# Developer entry points. The TPU smoke gate is the important one: the CPU
-# test suite runs Pallas kernels in interpret mode only and cannot see
-# device faults/hangs — run `make check-tpu` before every snapshot commit.
+# Developer entry points. The CPU test suite cannot see device faults or
+# GPU numerics: on a machine with a GPU, `make check-gpu` runs the on-card
+# check (chip_smoke.py) and the GPU-marked tests.
 
 PY ?= python
 
-.PHONY: test test-fast check-tpu bench bench-tiny install-smoke
+.PHONY: test test-fast check-gpu bench bench-tiny install-smoke
 
 test:
-	$(PY) -m pytest tests/ -x -q
+	$(PY) -m pytest tests/ -q -n 6 --dist loadfile
 
-# Fast inner loop: skips multiprocess-distributed, inverse-rendering fits,
-# and interpret-mode kernel suites (marked slow).
+# Fast inner loop: skips multiprocess-distributed and inverse-rendering
+# fits (marked slow).
 test-fast:
-	$(PY) -m pytest tests/ -x -q -m "not slow"
+	$(PY) -m pytest tests/ -q -m "not slow" -n 6 --dist loadfile
 
 # Packaging smoke (offline): build the wheel, install it into a fresh
 # venv (runtime deps resolved from the dev env via PYTHONPATH — this
@@ -31,10 +31,10 @@ install-smoke:
 	s = presets.shirley_final_scene(grid=2, with_bvh=True); \
 	print('install-smoke ok:', s.primitive_count, 'prims')"
 
-# Hard-timeout device smoke (tiny pooled render + compiled-Pallas vs MXU
-# hit agreement). Exits nonzero fast on a kernel fault or hang.
-check-tpu:
-	timeout 420 $(PY) -m raytracer_project_tpu.utils.smoke
+# On-card check; exits nonzero on any failed phase or without a GPU.
+check-gpu:
+	timeout 1200 $(PY) chip_smoke.py
+	$(PY) -m pytest tests/ -q -m gpu
 
 bench:
 	$(PY) bench.py

@@ -1,10 +1,10 @@
 // zenith_native: host-side native runtime for raytracer_project_tpu.
 //
-// TPU-native framework's C++ layer, mirroring the roles the reference
+// The framework's C++ layer, mirroring the roles the reference
 // engine implements in C++ (/root/reference): BVH construction
 // (bvh.hpp:9-44), OBJ loading (model.hpp + vendored TinyObjLoader), and PNG
 // export (stb_image_write via camera.hpp:779). The *device* compute path is
-// JAX/XLA/Pallas; this library owns the host-side heavy lifting where
+// JAX/XLA; this library owns the host-side heavy lifting where
 // Python is slow: asset parsing and acceleration-structure builds for
 // large scenes.
 //

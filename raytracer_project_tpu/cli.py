@@ -1,6 +1,6 @@
 """Command-line interface: render / bench / info.
 
-The reference is an interactive SDL+ImGui binary (main.cpp); the TPU-native
+The reference is an interactive SDL+ImGui binary (main.cpp); the JAX-native
 framework is a library + this CLI (SURVEY §7 decision 7: all *capabilities*
 of the UI — pass selection, progress/ETA, cancellation, export, logs — as
 library/CLI features).
@@ -229,10 +229,12 @@ def _cmd_render(args) -> int:
     if not args.quiet:
         sys.stderr.write("\n")
     dt = time.perf_counter() - t0
-    log.render("Rendered %d spp in %.1fs (%.2f Mrays/s)", sess.samples_done,
+    log.render("Rendered %d spp in %.3fs (%.2f Mrays/s bound; %.0f path "
+               "segments traced, %.2f M segments/s)", sess.samples_done,
                dt, applog.rays_per_second(config.width, config.height,
                                           sess.samples_done,
-                                          config.max_depth, dt) / 1e6)
+                                          config.max_depth, dt) / 1e6,
+               sess.segments_traced, sess.segments_traced / dt / 1e6)
 
     if args.checkpoint:
         sess.checkpoint(args.checkpoint)

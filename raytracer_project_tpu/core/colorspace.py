@@ -1,6 +1,6 @@
 """Color-space transforms: ACES fit, gamma, NaN scrubbing.
 
-TPU-native, differentiable versions of the reference's color helpers
+JAX-native, differentiable versions of the reference's color helpers
 (/root/reference/common.hpp:48-91). Operate on arrays of any shape
 (typically [..., 3] linear RGB).
 """

@@ -1,8 +1,8 @@
 """Core numeric constants.
 
-TPU-native re-expression of the reference engine's global constants
-(see /root/reference/common.hpp:14-16). Everything is float32 — the TPU's
-native precision — instead of the reference's double.
+JAX-native re-expression of the reference engine's global constants
+(see /root/reference/common.hpp:14-16). Everything is float32 — the
+accelerator's fast precision — instead of the reference's double.
 """
 
 import numpy as np
@@ -18,7 +18,7 @@ RAY_EPSILON = 1e-4
 # (reference: camera.hpp:355 `tmin = 0.001`).
 T_MIN = 1e-3
 
-# Large-but-finite stand-in for +inf ray extents; keeps arithmetic finite on TPU.
+# Large-but-finite stand-in for +inf ray extents; keeps arithmetic finite.
 T_MAX = 1e30
 
 # Weak-ray early-out threshold (reference: camera.hpp:968 `< 0.0001`).

@@ -1,14 +1,10 @@
 """SoA 3-vector helpers: vectors as (x, y, z) tuples of [N] arrays.
 
-Why this exists: XLA:TPU lays rank-2 [N, 3] arrays out with the 3-axis on
-either sublanes (T(4,128), 75% dense) or lanes (T(8,128), 3/128 = 2.3%
-dense), and *flip-flops* between the two across fusion boundaries in large
-graphs — the round-3 xplane trace of one pool step showed ~24 ms/step of
-transposes (`copy`), `multiply_reduce` and `subtract_reduce` fusions on
-f32[3,262144]{0,1} operands, pure layout churn. Plain [N] component arrays
-tile densely (T(1024)) with exactly one possible layout, every vector op
-becomes unfused-free elementwise arithmetic (a dot product is two fma's,
-not a cross-lane reduce), and the churn is gone by construction.
+Why this exists: a rank-2 [N, 3] array has two possible layouts, and a
+compiler can switch between them across fusion boundaries (transposes that
+do no useful work). Plain [N] component arrays have exactly one layout,
+and every vector op becomes plain elementwise arithmetic (a dot product is
+two fma's, not a cross-lane reduce).
 
 The hot wavefront loop (ops/wavefront.py) and everything it calls
 (shade, environment, camera ray-gen, hit records) runs on these triples;

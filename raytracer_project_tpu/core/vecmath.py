@@ -1,8 +1,9 @@
 """Batched 3-vector math on trailing-dim-3 arrays.
 
-TPU-native equivalent of the reference's scalar `vec3` class
+JAX-native equivalent of the reference's scalar `vec3` class
 (/root/reference/vec3.hpp). Instead of a vec3 object graph we operate on
-jnp arrays of shape [..., 3] so every op is a fused VPU-wide map under XLA.
+jnp arrays of shape [..., 3] so every op is a fused elementwise map under
+XLA.
 All functions are pure and differentiable.
 """
 
@@ -109,31 +110,3 @@ def smoothstep(edge0, edge1, x):
     """Hermite smoothstep (common.hpp:87-91)."""
     t = jnp.clip((x - edge0) / (edge1 - edge0), 0.0, 1.0)
     return t * t * (3.0 - 2.0 * t)
-
-
-def atan2_poly(y, x):
-    """Polynomial arctan2: add/mul/select only, for contexts where the
-    exact primitive cannot lower (Pallas TPU kernels — Mosaic implements
-    no atan). Max error ~1e-5 rad (minimax odd degree-11 on [0, 1] +
-    octant reduction) — far below one texel of any equirect map, the only
-    consumer on the fused hot path.
-    """
-    ax = jnp.abs(x)
-    ay = jnp.abs(y)
-    hi = jnp.maximum(ax, ay)
-    lo = jnp.minimum(ax, ay)
-    z = lo / jnp.maximum(hi, 1e-30)
-    z2 = z * z
-    a = z * (0.99997726 + z2 * (-0.33262347 + z2 * (0.19354346
-        + z2 * (-0.11643287 + z2 * (0.05265332 + z2 * -0.01172120)))))
-    a = jnp.where(ay > ax, 0.5 * jnp.pi - a, a)
-    a = jnp.where(x < 0.0, jnp.pi - a, a)
-    return jnp.where(y < 0.0, -a, a)
-
-
-def acos_poly(x):
-    """Polynomial arccos via atan2_poly(sqrt(1-x^2), x); clamped like
-    safe_arccos (no gradient guard — the fused kernel is forward-only)."""
-    xc = jnp.clip(x, -1.0, 1.0)
-    s = jnp.sqrt(jnp.maximum(1.0 - xc * xc, 0.0))
-    return atan2_poly(s, xc)

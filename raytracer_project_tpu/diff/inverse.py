@@ -1,7 +1,7 @@
 """Inverse rendering: select parameters by path, differentiate, optimize.
 
 Replaces nothing in the reference — the C++ engine has no gradient story at
-all; this is the capability the TPU-native redesign adds on top (the scene
+all; this is the capability the JAX-native redesign adds on top (the scene
 being a pytree of SoA jnp arrays, models/scene.py, is what makes it free).
 
 Typical use:

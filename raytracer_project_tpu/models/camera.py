@@ -1,6 +1,6 @@
 """Thin-lens perspective camera.
 
-TPU-native equivalent of the reference camera's viewport setup and ray
+JAX-native equivalent of the reference camera's viewport setup and ray
 generation (/root/reference/camera.hpp:358-402, 784-825). Instead of a
 per-pixel `get_ray(i, j)` call, `generate_rays` produces the whole
 [H*W]-ray wavefront in one fused op, jittered and defocus-sampled from
@@ -94,11 +94,9 @@ def make_camera(
 
 def pixel_rowcol_f32(pixel_ids: jax.Array, width: int,
                      n_pixels: int | None = None):
-    """Row/col split of row-major pixel ids, TPU-fast: (col f32, row f32).
+    """Row/col split of row-major pixel ids in f32: (col f32, row f32).
 
-    The f32 path exists because i32 div/mod lowers to emulated
-    multiply-high on the TPU VPU (~0.35 ms per mult at 262k lanes). The
-    f32 estimate floor((pix+0.5)/w) can be off by one above ~5M pixels, so
+    The f32 estimate floor((pix+0.5)/w) can be off by one above ~5M pixels, so
     one exact integer correction follows: pf and jj*width are integers
     < 2^24, hence their f32 difference is exact and the remainder test is
     exact. PRECONDITION: pixel ids < 2^24 — beyond that pixel ids are not

@@ -1,6 +1,6 @@
 """Learned denoiser: a compact residual U-Net on (beauty, albedo, normal).
 
-The TPU-native counterpart of the reference's Intel OIDN filter
+The counterpart of the reference's Intel OIDN filter
 (/root/reference/camera.hpp:581-699): same 3-buffer input contract
 (camera.hpp:640-648), implemented as a small pure-JAX U-Net (plain
 parameter pytrees — no framework dependency) that predicts a residual
@@ -10,9 +10,9 @@ renders from this engine); `load_default()` returns a callable matching
 the ops.denoise.denoise(model=...) hook.
 
 Architecture: 2-level U-Net, 3x3 convs + leaky ReLU, stride-2 downsample,
-nearest-neighbor upsample with skip concatenation — sized (~70k params) so
-a 1080p denoise is a few ms on one v5e chip and the MXU sees [HW, C]x[C, C']
-matmuls via XLA's conv lowering.
+nearest-neighbor upsample with skip concatenation (~70k params). The convs
+run at HIGHEST precision: float32 at default precision may run in TF32 on
+a GPU, and the quality tests were calibrated in full float32.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ def _conv(x, w, b, stride: int = 1):
                                         ("NHWC", "HWIO", "NHWC"))
     y = jax.lax.conv_general_dilated(
         x, w, window_strides=(stride, stride), padding="SAME",
-        dimension_numbers=dn)
+        dimension_numbers=dn, precision=jax.lax.Precision.HIGHEST)
     return y + b
 
 

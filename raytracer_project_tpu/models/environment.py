@@ -1,6 +1,6 @@
 """Environment lighting: solid color / HDRI equirect / procedural sun-sky.
 
-TPU-native re-expression of the reference's EnvironmentSettings
+JAX-native re-expression of the reference's EnvironmentSettings
 (/root/reference/environment.hpp:8-77) and the environment shader inside the
 camera (/root/reference/camera.hpp:828-925), plus the astronomical daylight
 model from the UI layer (/root/reference/main.cpp:822-893).

@@ -1,11 +1,11 @@
 """Geometry: flat SoA primitive tables + host-side scene building.
 
-TPU-native re-expression of the reference's shared_ptr polymorphic
+JAX-native re-expression of the reference's shared_ptr polymorphic
 `hittable` graph (/root/reference/hittable.hpp:29-36, sphere.hpp, cube.hpp,
 triangle.hpp) and its transform wrappers (translate.hpp, rotate_x/y/z.hpp,
 scale.hpp, material_instance.hpp).
 
-Design decisions (TPU-first):
+Design decisions:
  * Three device-side primitive types: SPHERE, TRIANGLE, and BOX. A box is
    stored as the world->local affine of a canonical [-1,1]^3 cube and hit
    with the reference's local-frame slab test (cube.hpp:44-86) — one
@@ -71,7 +71,7 @@ class BoxTable(NamedTuple):
     representations shade identically.)
 
     aabb_min/max cache the world-space AABB of the transformed cube (8
-    corner hull): used by the BVH builder and the MXU chunk-cull bounds.
+    corner hull): used by the BVH builder.
     """
 
     minv: jax.Array      # f32[B,9]  world->local linear part, row-major
@@ -384,11 +384,10 @@ class GeometryBuilder:
     def morton_order(cls, points: np.ndarray) -> np.ndarray:
         """Stable permutation sorting points along a 30-bit 3-D Morton curve.
 
-        Used to lay primitive-table rows out spatially so every MM_PAD-wide
-        coefficient chunk has a tight AABB (the Pallas intersector culls
-        whole chunks against ray-block bounds — see intersect.MMTables).
-        Host-side numpy; purely a storage-order choice — the hit set is
-        unchanged.
+        Used to lay primitive-table rows out spatially, so every
+        brute-scan chunk holds nearby primitives (what a chunk-culling
+        intersector would need). Host-side numpy; purely a storage-order
+        choice — the hit set is unchanged.
         """
         p = np.asarray(points, np.float64)
         if p.shape[0] <= 1:
@@ -459,8 +458,8 @@ class GeometryBuilder:
                 mat=np.zeros((1,), np.int32),
             )
 
-        # Spatial (Morton) row order -> tight per-chunk AABBs for the
-        # MXU intersector's chunk culling. Pure storage-order choice.
+        # Spatial (Morton) row order -> spatially tight scan chunks. Pure
+        # storage-order choice.
         sp = self.morton_order(sph.center)
         sph = SphereTable(*(np.ascontiguousarray(col[sp]) for col in sph))
         centroid = tri.v0 + (tri.e1 + tri.e2) / 3.0

@@ -7,20 +7,20 @@ around it, scene_management.hpp:113-118, main.cpp:1492-1500). The flat
 path in models/obj.py instead bakes every instance's triangles into the
 global tables, so moving one instance costs a full world rebuild.
 
-This module is the TPU-native two-level counterpart:
+This module is the JAX-native two-level counterpart:
 
   BLAS  MeshAsset — local-space triangles, Morton-ordered ONCE, with a
         local flat BVH built ONCE and shared by every instance (and
         every rebuild). The local order is also the instance's block
-        order in the global tables, so the chunk-cull kernel's per-chunk
-        AABBs stay tight without any global re-sort.
+        order in the global tables, so scan chunks stay spatially tight
+        without any global re-sort.
 
   TLAS  InstancedWorld — instances are (mesh, 4x4 affine, material)
         rows. `build()` appends each instance as a CONTIGUOUS block
         after the base scene's triangles; `set_transform()` +
         `rebuild()` then recompute ONLY the moved instances' blocks
-        (vertex transform, Möller-Trumbore coefficient slice, chunk
-        bounds rows) and splice them into the existing device arrays —
+        (vertex and normal transform) and splice them into the existing
+        tables —
         host work is O(moved triangles), not O(total triangles), which
         `triangles_recomputed` exposes for the test to pin.
 
@@ -28,12 +28,12 @@ This module is the TPU-native two-level counterpart:
         path: per instance, the ray is pulled into mesh-local space
         (t is affine-invariant when o and d transform together) and the
         shared local BVH is traversed; results map back through the
-        block layout. The TPU hot path needs no special casing: the
-        chunk-cull scan reads the same global tables.
+        block layout. The render path needs no special casing: the
+        brute scan reads the same global tables.
 
 Scenes built here carry `bvh=None` (the global single-level BVH is the
 one structure that WOULD need a full O(N log N) rebuild per move; the
-TPU dispatch never wants it and the CPU query path uses the BLAS'es).
+query path uses the BLAS'es instead).
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..ops import intersect as isect_mod
-from ..ops.intersect import MM_FINE, Hit
+from ..ops.intersect import Hit
 from . import geometry as geom_mod
 from .scene import Scene, SceneBuilder
 
@@ -88,8 +88,6 @@ class InstancedWorld:
         self.triangles_recomputed = 0   # host-work meter for tests
         self._base_scene: Scene | None = None
         self._tri_host: dict | None = None   # host copies of tri fields
-        self._coeff_host: np.ndarray | None = None
-        self._bounds_host: np.ndarray | None = None
         self._scene: Scene | None = None
 
     # -- assets --------------------------------------------------------------
@@ -225,10 +223,7 @@ class InstancedWorld:
 
         tri_table = geom_mod.TriangleTable(
             **{k: jnp.asarray(v) for k, v in tri.items()})
-        mm = isect_mod.build_mm_tables(base.spheres, tri_table, base.boxes)
-        self._coeff_host = np.asarray(mm.tri_coeff)
-        self._bounds_host = np.asarray(mm.tri_bounds)
-        self._scene = base._replace(triangles=tri_table, mm=mm, bvh=None)
+        self._scene = base._replace(triangles=tri_table, bvh=None)
         return self._scene
 
     def rebuild(self) -> Scene:
@@ -237,12 +232,9 @@ class InstancedWorld:
         of the reference's sub-BVH reuse across build_geometry calls)."""
         assert self._scene is not None, "call build() first"
         tri = self._tri_host
-        coeff = self._coeff_host
-        bounds = self._bounds_host
         dirty = [i for i in self.instances if i.dirty]
         if not dirty:
             return self._scene
-        touched = []
         for inst in dirty:
             s, k = inst.start, self.meshes[inst.mesh_id].count
             v0, v1, v2, n0, n1, n2 = self._world_block(inst)
@@ -252,30 +244,11 @@ class InstancedWorld:
             tri["n0"][s:s + k] = n0
             tri["n1"][s:s + k] = n1
             tri["n2"][s:s + k] = n2
-            coeff[:, :, s:s + k] = isect_mod.tri_coeff_block(
-                tri["v0"][s:s + k], tri["e1"][s:s + k], tri["e2"][s:s + k])
-            touched.append((s, k))
             inst.dirty = False
-
-        # Chunk-bounds rows overlapping any touched block (MM_FINE wide).
-        for s, k in touched:
-            for c in range(s // MM_FINE, -(-(s + k) // MM_FINE)):
-                lo, hi = c * MM_FINE, min((c + 1) * MM_FINE,
-                                          tri["v0"].shape[0])
-                va = tri["v0"][lo:hi]
-                vb = va + tri["e1"][lo:hi]
-                vc = va + tri["e2"][lo:hi]
-                if c < bounds.shape[0]:
-                    bounds[c, 0:3] = np.minimum(np.minimum(va, vb),
-                                                vc).min(0)
-                    bounds[c, 3:6] = np.maximum(np.maximum(va, vb),
-                                                vc).max(0)
 
         tri_table = geom_mod.TriangleTable(
             **{k: jnp.asarray(v) for k, v in tri.items()})
-        mm = self._scene.mm._replace(tri_coeff=jnp.asarray(coeff),
-                                     tri_bounds=jnp.asarray(bounds))
-        self._scene = self._scene._replace(triangles=tri_table, mm=mm)
+        self._scene = self._scene._replace(triangles=tri_table)
         return self._scene
 
 
@@ -312,8 +285,8 @@ def intersect_instanced(world: InstancedWorld, scene: Scene, o, d,
         minv = np.linalg.inv(inst.transform)
         a = jnp.asarray(minv[:3, :3], jnp.float32)
         t3 = jnp.asarray(minv[:3, 3], jnp.float32)
-        o_l = o @ a.T + t3
-        d_l = d @ a.T
+        o_l = isect_mod.rows_dot(a[None], o[:, None, :]) + t3
+        d_l = isect_mod.rows_dot(a[None], d[:, None, :])
         h = traverse.intersect_bvh(mesh.local_scene, o_l, d_l, tmin)
         better = h.hit & (h.t < best_t)
         best_t = jnp.where(better, h.t, best_t)

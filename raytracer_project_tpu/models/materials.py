@@ -1,6 +1,6 @@
 """Material system: flat SoA material table + host-side registry.
 
-TPU-native re-expression of the reference's polymorphic `material` class
+JAX-native re-expression of the reference's polymorphic `material` class
 hierarchy (/root/reference/material.hpp:7-279) and the name->material
 Flyweight registry (/root/reference/material_library.hpp). Virtual
 `scatter()` dispatch becomes a branchless per-type evaluation selected by an

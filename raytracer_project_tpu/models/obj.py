@@ -1,6 +1,6 @@
 """Wavefront OBJ mesh loading.
 
-TPU-native equivalent of the reference's TinyObjLoader-backed `model` class
+JAX-native equivalent of the reference's TinyObjLoader-backed `model` class
 (/root/reference/model.hpp:12-103): parse vertices/normals/faces, auto-center
 the model to the origin with its bottom at y=0, apply a uniform scale, and
 emit triangles with per-vertex normals (flat fallback). The per-mesh

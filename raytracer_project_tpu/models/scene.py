@@ -28,9 +28,6 @@ class Scene(NamedTuple):
     textures: TextureBank
     bvh: Any = None      # ops.bvh.FlatBVH once built; None = brute force
     volumes: Any = None  # ops.volumes.VolumeTable; None = no media
-    mm: Any = None       # ops.intersect.MMTables (MXU matmul coefficients);
-                         # derived from the primitive tables, dropped in
-                         # differentiable renders (see integrator.render)
     boxes: BoxTable | None = None  # native affine-slab boxes (cube.hpp)
 
     @property
@@ -89,8 +86,6 @@ class SceneBuilder:
 
         vs = self._volumes
         mats = np.asarray([v["mat"] for v in vs], np.int32)
-        tex_ids = np.asarray(self.materials.pack().texture_id)[mats]
-        textured = mats[tex_ids >= 0]
         return VolumeTable(
             kind=np.asarray([v["kind"] for v in vs], np.int32),
             center=np.asarray([v["center"] for v in vs], np.float32),
@@ -101,22 +96,16 @@ class SceneBuilder:
                 [-1.0 / v["density"] for v in vs], np.float32
             ),
             mat=mats,
-            # None unless some volume material is textured — a STATIC
-            # structural marker fused_supported can read under jit.
-            textured=textured if textured.size else None,
         )
 
     def build(self, with_bvh: bool = True) -> Scene:
         """Assemble entirely in numpy (host), then convert the whole pytree
         to device arrays in one pass — small mixed numpy/jnp ops during
-        building would each trigger a device compile, which is ruinous over
-        remote-attached accelerators."""
+        building would each trigger a device compile."""
         import jax
         import jax.numpy as jnp
 
         spheres, triangles, boxes = self.geometry.pack()
-        from ..ops.intersect import build_mm_tables
-
         scene = Scene(
             spheres=spheres,
             triangles=triangles,
@@ -125,7 +114,6 @@ class SceneBuilder:
             textures=self.textures.pack(),
             bvh=None,
             volumes=self._pack_volumes(),
-            mm=build_mm_tables(spheres, triangles, boxes),
         )
         if with_bvh:
             from ..ops import bvh as bvh_mod

@@ -2,9 +2,9 @@
 
 The native library owns the host-side heavy lifting (SAH BVH builds, OBJ
 parsing, PNG export) — the roles the reference engine's C++ does outside the
-per-ray hot loop. It is compiled on demand with the system toolchain and
-cached; every entry point has a pure-Python fallback, so the framework works
-(slower) without a compiler.
+per-ray hot loop. It is compiled on first use from csrc/ with the system
+toolchain into build/ inside the checkout; every entry point has a
+pure-Python fallback, so the framework works (slower) without a compiler.
 
 Set RAYTRACER_TPU_NO_NATIVE=1 to force the Python fallbacks.
 """
@@ -54,11 +54,11 @@ class _ZnMesh(ctypes.Structure):
     ]
 
 
-def _cache_dir() -> str:
-    d = os.environ.get(
-        "RAYTRACER_TPU_NATIVE_DIR",
-        os.path.expanduser("~/.cache/raytracer_tpu_native"),
-    )
+def _build_dir() -> str:
+    """build/ inside the checkout (listed in .gitignore)."""
+    from .. import CHECKOUT_DIR
+
+    d = os.path.join(CHECKOUT_DIR, "build")
     os.makedirs(d, exist_ok=True)
     return d
 
@@ -86,7 +86,7 @@ def _load() -> ctypes.CDLL | None:
         src = os.path.abspath(_SRC)
         if not os.path.exists(src):
             return None
-        lib_path = os.path.join(_cache_dir(), "libzenith_native.so")
+        lib_path = os.path.join(_build_dir(), "libzenith_native.so")
         # Rebuild when the source is newer than the cached library.
         if (not os.path.exists(lib_path)
                 or os.path.getmtime(lib_path) < os.path.getmtime(src)):

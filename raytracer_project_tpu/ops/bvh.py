@@ -1,6 +1,6 @@
 """BVH construction: host-side builder -> flat, threaded (stackless) arrays.
 
-TPU-native replacement for the reference's shared_ptr binary BVH
+JAX-native replacement for the reference's shared_ptr binary BVH
 (/root/reference/bvh.hpp:9-149). The reference builds by sorting on a
 *random* axis and median-splitting (bvh.hpp:15-42 — its README claims
 "longest axis", the code says otherwise); this build uses binned SAH on the
@@ -12,7 +12,7 @@ The tree is emitted depth-first with *escape links* (threaded BVH): a ray
 either descends into node i+1 on an AABB hit or jumps to `escape[i]`.
 Device-side traversal state is then a single node index per lane — no
 per-ray stack — which is what makes the traversal a tight masked
-`while_loop` on TPU (see traverse.py).
+`while_loop` (see traverse.py).
 
 Leaf primitives are reordered into a contiguous table so a leaf is one
 gather of at most `leaf_size` rows.
@@ -34,9 +34,8 @@ PAD = 1e-4
 
 # Large leaves on purpose: lock-step wavefront traversal pays per *node
 # step* (sequential while-loop iterations), while leaf primitive tests are
-# wide vectorized ops the VPU eats for free. Measured on the showcase scene,
-# leaf 16 cuts max node steps ~35% vs leaf 4 for ~3x cheaper total work than
-# brute force.
+# wide vectorized ops. On the showcase scene leaf 16 cuts max node steps
+# ~35% vs leaf 4 (a count of loop iterations, not a time).
 DEFAULT_LEAF_SIZE = 16
 SAH_BINS = 16
 

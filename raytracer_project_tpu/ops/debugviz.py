@@ -1,6 +1,6 @@
 """BVH wireframe debug visualization.
 
-TPU-native re-expression of the reference's in-traversal debug rendering
+JAX-native re-expression of the reference's in-traversal debug rendering
 (/root/reference/bvh.hpp:46-110, aabb.hpp:68-84, camera.hpp:937-953):
 nodes at the selected tree level render neon box edges (depth-keyed color
 `(0.4, min(depth*0.15, 1), 1-g) * 4`), geometry under a selected node gets

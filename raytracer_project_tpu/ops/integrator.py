@@ -1,6 +1,6 @@
 """Wavefront path-tracing integrator.
 
-TPU-native replacement for the reference's per-pixel recursive/iterative
+Replacement for the reference's per-pixel recursive/iterative
 integrator (/root/reference/camera.hpp:430-544, 928-1004). The whole image
 is one ray wavefront: a single `lax.while_loop` advances every lane one
 bounce per iteration with masked (inactive) lanes instead of early returns.
@@ -60,8 +60,8 @@ class RenderConfig:
     use_refraction: bool = False
     z_depth_max_dist: float = Z_DEPTH_MAX_DIST
     # Samples fused into one wavefront per device step (None = auto-sized to
-    # ~2M lanes). Bigger batches amortize the lock-step traversal's
-    # sequential node steps across more lanes — the TPU wavefront analog of
+    # ~400k lanes). Bigger batches amortize the lock-step traversal's
+    # sequential node steps across more lanes — the wavefront analog of
     # the reference's per-pixel sample loop (camera.hpp:454).
     samples_per_batch: int | None = None
     # Reverse-mode differentiable bounce loop: replaces the early-exit
@@ -70,7 +70,7 @@ class RenderConfig:
     # exit). Intersection runs detached-traversal (intersect_detached): the
     # discrete closest-hit search uses whatever fast path applies on
     # stop_gradient'd inputs, then t is recomputed differentiably for the
-    # chosen primitive — so differentiable renders scale to BVH/MXU-sized
+    # chosen primitive — so differentiable renders scale to BVH-sized
     # scenes (only silhouette-boundary gradient terms are dropped).
     differentiable: bool = False
     # Pooled-wavefront scheduling (ops/wavefront.py): lanes whose path ended
@@ -78,20 +78,13 @@ class RenderConfig:
     # max_depth, so intersection work tracks actual path segments. Same
     # per-sample values; per-pixel sums differ from the chunked path only in
     # float addition order. Ignored when differentiable=True.
-    # Default ON: the pool is the fastest engine (2.6x the chunked path on
-    # v5e before kernel fusion; the fused two-kernel step on top) and the
-    # one the session/CLI ship. Auto-disabled when differentiable=True
-    # (reverse-mode needs the fixed-depth chunked loop); the chunked path
-    # remains the oracle the pool is equivalence-tested against.
+    # Default ON: the pool is the production engine the session/CLI ship.
+    # Auto-disabled when differentiable=True (reverse-mode needs the
+    # fixed-depth chunked loop); the chunked path remains the oracle the
+    # pool is equivalence-tested against.
     wavefront: bool = True
     # Lane-pool size for wavefront mode (None = auto).
     pool_lanes: int | None = None
-    # Re-partition pool lanes by direction-octant/origin-Morton each step so
-    # ray blocks stay coherent for the Pallas chunk culling. Measured net
-    # negative on v5e for the showcase scene (the permute's state rewrite
-    # costs more than the extra culling saves), so off by default; revisit
-    # for large scenes where culling dominates.
-    sort_lanes: bool = False
 
     @property
     def aux_samples(self) -> int:
@@ -142,8 +135,8 @@ def trace(scene: Scene, env, origin, direction, lane_rng: rng.LaneRng, *,
 
         if differentiable:
             # Detached traversal + differentiable hit distance: any fast
-            # intersector (BVH / MXU / Pallas) is usable under reverse-mode
-            # AD because no tangent enters its discrete search.
+            # intersector (BVH or scan) is usable under reverse-mode AD
+            # because no tangent enters its discrete search.
             hit = intersect.intersect_detached(
                 scene, s.origin, s.direction, T_MIN
             )
@@ -332,8 +325,8 @@ def render_sample(scene: Scene, cam: camera_mod.Camera, env, key,
 
 # Auto-sizing target for fused (pixel x sample) wavefronts. Each lane's
 # brute-force scan step materializes [lanes, CHUNK]-shaped temporaries
-# (~50 B/pair at peak); 400k lanes keeps that under ~2.5 GB of HBM —
-# measured safe on v5e (1.8M lanes faults the device).
+# (~50 B/pair at peak); 400k lanes keeps that under ~2.5 GB of device
+# memory.
 _TARGET_LANES = 400_000
 
 
@@ -354,8 +347,8 @@ def accumulate_samples(scene: Scene, cam: camera_mod.Camera, env, key,
     path has no on-device counter, so it reports {"segments": None}.
 
     pixel_ids=None statically means the identity full frame (see
-    wavefront.render_pool) — the form jitted callers must use for the
-    fused fast path to be reachable. With n_pixels_local it means the
+    wavefront.render_pool), which lets the pool skip its per-spawn pixel
+    gather. With n_pixels_local it means the
     identity pixel WINDOW [pixel_offset, pixel_offset + n_pixels_local)
     (clamped to the frame) — the sharded path's per-shard slice;
     pixel_offset may be traced (axis_index inside shard_map).

@@ -1,6 +1,6 @@
 """Differentiable HDR post-processing chain.
 
-TPU-native re-expression of the reference's post_processor
+JAX-native re-expression of the reference's post_processor
 (/root/reference/color_processing.hpp:43-345), bloom_filter
 (/root/reference/bloom.hpp:6-70), and the camera's buffer-level pipeline
 (/root/reference/camera.hpp:142-207). Every op is a fused vectorized map

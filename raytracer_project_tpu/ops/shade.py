@@ -1,6 +1,6 @@
 """Branchless material evaluation over ray wavefronts.
 
-TPU-native replacement for the reference's virtual `material::scatter`
+JAX-native replacement for the reference's virtual `material::scatter`
 dispatch (/root/reference/material.hpp:24,74-108,129-151,192-224,255-258).
 All material families are evaluated for every lane with shared random
 draws, then the per-lane result is selected by the material type tag —
@@ -27,11 +27,8 @@ _BUMP_DELTA = 1.0 / 1024.0
 
 
 def _mat_fetch(scene: Scene, mat_ids):
-    """One wide-row gather of all material columns.
-
-    XLA:TPU stages 1-column gather tables through a serial SMEM copy per
-    gather (see intersect._sphere_packed); packing the material table into
-    one [M, 8] f32 matrix makes the whole lookup a single vector gather.
+    """One wide-row gather of all material columns: the material table
+    packed into one [M, 8] f32 matrix makes the lookup a single gather.
     Returns (mtype i32[N], albedo f32[N,3], param f32[N], texture_id
     i32[N], bump_id i32[N], bump_strength f32[N]).
     """
@@ -48,12 +45,8 @@ def _mat_fetch(scene: Scene, mat_ids):
 
 
 def _mat_fetch_soa(scene: Scene, mat_ids):
-    """SoA twin of _mat_fetch: per-component 1-D gathers.
-
-    A single [N, 8] row gather pads its minor dim to 128 lanes on TPU and
-    every column read re-streams the padded tiles (see
-    intersect.make_record_soa); eight dense 1-D f32 gathers from the
-    compile-time-constant material columns cost ~0.3 ms at 262k lanes.
+    """SoA twin of _mat_fetch: per-component 1-D gathers from the
+    loop-invariant material columns.
     Returns (mtype i32[N], albedo (r, g, b) tuple, param f32[N],
     texture_id i32[N], bump_id i32[N], bump_strength f32[N]).
     """

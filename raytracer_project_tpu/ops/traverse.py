@@ -1,6 +1,6 @@
 """Stackless (threaded) BVH traversal over ray wavefronts.
 
-TPU-native replacement for the reference's recursive bvh_node::hit
+Replacement for the reference's recursive bvh_node::hit
 (/root/reference/bvh.hpp:46-119). Per-lane state is a single node index:
 on an AABB hit an internal node falls through to its first child (i+1, DFS
 layout); otherwise — and after leaf primitive tests — the lane jumps to the
@@ -20,7 +20,7 @@ import jax.numpy as jnp
 from ..core import vecmath
 from ..core.constants import T_MAX
 from ..models.geometry import PRIM_BOX, PRIM_SPHERE
-from .intersect import Hit
+from .intersect import Hit, rows_dot
 
 
 def _leaf_candidates(scene, bvh, slot_ids, o, d, tmin, tmax):
@@ -72,8 +72,8 @@ def _leaf_candidates(scene, bvh, slot_ids, o, d, tmin, tmax):
     # Affine-slab box (cube.hpp:44-86; see intersect.box_candidate_t).
     m = bvh.slot_minv[slot_ids].reshape(*slot_ids.shape, 3, 3)  # [N,K,3,3]
     trans = bvh.slot_trans[slot_ids]                            # [N,K,3]
-    o_l = jnp.einsum("nkij,nj->nki", m, o) + trans
-    d_l = jnp.einsum("nkij,nj->nki", m, d)
+    o_l = rows_dot(m, o[:, None, None, :]) + trans
+    d_l = rows_dot(m, d[:, None, None, :])
     inv = 1.0 / jnp.where(jnp.abs(d_l) < 1e-30, 1e-30, d_l)
     b0 = (-1.0 - o_l) * inv
     b1 = (1.0 - o_l) * inv

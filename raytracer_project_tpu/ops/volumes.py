@@ -1,6 +1,6 @@
 """Homogeneous participating media (constant-density fog volumes).
 
-TPU-native re-expression of the reference's `constant_medium`
+JAX-native re-expression of the reference's `constant_medium`
 (/root/reference/constant_medium.hpp:24-87): find the ray's [entry, exit]
 span inside the boundary, clamp it against the closest surface hit, draw an
 exponential free-flight distance `-1/density * log(u)`, and scatter
@@ -15,7 +15,7 @@ per-lane counter-based RNG. The phase function is an ISOTROPIC material row
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -46,13 +46,6 @@ class VolumeTable(NamedTuple):
     box_max: jax.Array
     neg_inv_density: jax.Array
     mat: jax.Array
-    # STRUCTURAL static marker (None vs array — pytree structure survives
-    # jit, array values do not): None means every volume's phase material
-    # has a solid (untextured) albedo, the precondition for the fused
-    # engine's in-kernel media sampling (fused_step.fused_supported must
-    # decide this on a TRACED scene). When any volume material is
-    # textured, the builder stores their material ids here.
-    textured: Any = None
 
     @property
     def count(self) -> int:

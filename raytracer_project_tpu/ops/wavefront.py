@@ -7,25 +7,25 @@ masked no-ops while the stragglers finish, so late bounce iterations run at
 a few percent occupancy — most of the brute-force intersection work is
 wasted on dead lanes.
 
-This module implements the classic wavefront-pool design, TPU-style: a
-fixed-size lane pool where every step (a) advances all live paths one
-bounce and (b) *refills* lanes whose path just ended with the next
-(pixel, sample) work item. Occupancy stays ~100%, so total intersection
-work is proportional to the actual number of path segments
-(~2-4 per sample) instead of samples x max_depth (reference default 10,
-camera.hpp:30). Everything is static-shaped: respawn is a masked prefix-sum
-assignment, accumulation is scatter-add (both measured sub-millisecond on
-v5e for 262k lanes).
+This module implements the classic wavefront-pool design: a fixed-size
+lane pool where every step (a) advances all live paths one bounce and
+(b) *refills* lanes whose path just ended with the next (pixel, sample)
+work item. Occupancy stays ~100%, so total intersection work is
+proportional to the actual number of path segments (~2-4 per sample)
+instead of samples x max_depth (reference default 10, camera.hpp:30).
+Everything is static-shaped: respawn is a masked prefix-sum assignment,
+accumulation is scatter-add.
 
 All per-lane vectors ride the loop as SoA component tuples (core/soa.py):
-the round-3 xplane trace showed ~24 ms/step of [P, 3] <-> [3, P] layout
-churn (transposes + 2.3%-dense lane tiles) at 262k lanes; component [P]
-arrays have exactly one layout and every vector op is dense elementwise.
+component [P] arrays have exactly one layout and every vector op is dense
+elementwise.
 
 Per-sample radiance is bit-identical to integrator.render_sample up to
 float reassociation: lane randomness is keyed on (base key, sample, pixel,
 bounce) exactly as there, so pooling only changes the *order* in which
-finished samples are added into each pixel's accumulator.
+finished samples are added into each pixel's accumulator. On a GPU the
+scatter-adds may run as atomics, so that order (and the last bits of each
+pixel sum) can also change from run to run.
 
 Reference parity notes: bounce-0 lanes reproduce the first-hit-reuse
 structure of camera.hpp:454-527 (shared first hit feeding beauty + AOVs +
@@ -55,10 +55,10 @@ from ..models.scene import Scene
 from . import intersect, shade, volumes as volumes_mod
 from .integrator import RenderConfig, SampleBuffers
 
-# Default lane-pool size: big enough to keep the MXU intersection batches
-# wide, small enough that the respawn tail (< one pool of partially-idle
-# steps) stays negligible for real sample counts.
-POOL_LANES = 262_144
+# Default lane-pool size: big enough to keep intersection batches wide,
+# small enough that the respawn tail (< one pool of partially-idle steps)
+# stays negligible for real sample counts. Not yet re-derived on the GPU.
+DEFAULT_POOL_SIZE = 262_144
 
 
 
@@ -83,11 +83,7 @@ class _PoolState(NamedTuple):
     to_refr: jax.Array     # bool[P]
     # Enabled accumulators only (sums), stored as THREE 1-D [n_pixels + 1]
     # channel arrays per buffer (keys "beauty.x" etc.) with one overflow
-    # slot for masked scatter-adds; see make_pool. 1-D because XLA's layout
-    # assignment gives a [n+1, 3] while-carry a transposed {0,1:T(4,128)}
-    # layout whose scatter-add runs ~500x slower (measured 10.5 ms vs
-    # 0.02 ms per step at 262k lanes on v5e); a 1-D carry has exactly one
-    # possible layout, so the fast scatter emitter always applies.
+    # slot for masked scatter-adds; see make_pool.
     acc: dict
     # Measured work: path segments actually traced (sum of live lanes per
     # step; f32 — bit-exact to 2^24 per-step increments, ~1e-7 relative
@@ -114,12 +110,10 @@ def _spawn(scene: Scene, cam, seed, config: RenderConfig, pixel_ids,
     samp = sample_offset + samp_rel
     if identity_pixels:
         # Full-frame render: pixel_ids is arange(n), so the gather is the
-        # identity (saves ~2 ms/step at 262k lanes).
+        # identity.
         pix = li
     else:
-        # f32 gather: XLA:TPU stages s32 gather tables through a scalar
-        # SMEM loop (~200x slower); pixel ids are < 2^24 so f32 is exact.
-        pix = pixel_ids.astype(jnp.float32)[li].astype(jnp.int32)
+        pix = pixel_ids[li]
 
     # Camera draws always use ctx (bounce 0, beauty): the spec-pass path of
     # a (pixel, sample) re-traces the *same* camera ray as its beauty path
@@ -129,57 +123,6 @@ def _spawn(scene: Scene, cam, seed, config: RenderConfig, pixel_ids,
     o, d = camera_mod.generate_rays_soa(cam, lr0, pix, config.width,
                                         config.n_pixels)
     return li, pix, samp, is_spec, o, d
-
-
-# Coherence-partition bucket count: 1 dead-lane bit + 3 direction-octant
-# bits (major) + 1 Morton level of origin (3 bits, minor). More buckets
-# partition finer but the [P, NB] counting-sort cumsum scales linearly.
-_N_BUCKETS = 1 << 7
-
-
-def _coherence_order(origin, direction, live):
-    """Lane permutation grouping rays by direction octant (major) then a
-    coarse origin Morton cell (minor), dead lanes last.
-
-    origin/direction are SoA component tuples. Grouped pool blocks are
-    directionally/spatially coherent, which is what makes the Pallas
-    intersector's per-block chunk culling effective on secondary bounces
-    (primary blocks are naturally coherent). Implemented as a single stable
-    counting-sort pass over a small bucket key: a full argsort costs
-    ~57 ms/step on v5e (XLA bitonic sort), the bucket partition runs in
-    ~1 ms. Pure scheduling: lane randomness is (sample, pixel)-keyed, so
-    reordering never changes any sample's value.
-    """
-    p = origin[0].shape[0]
-    half = []
-    for c in origin:
-        lo = jnp.min(c)
-        span = jnp.maximum(jnp.max(c) - lo, 1e-6)
-        half.append((((c - lo) / span) > 0.5).astype(jnp.uint32))
-    morton = (half[0] << 2) | (half[1] << 1) | half[2]
-    octant = (
-        ((direction[0] > 0).astype(jnp.uint32) << 2)
-        | ((direction[1] > 0).astype(jnp.uint32) << 1)
-        | (direction[2] > 0).astype(jnp.uint32)
-    )
-    bkey = (
-        ((~live).astype(jnp.uint32) << 6) | (octant << 3) | morton
-    ).astype(jnp.int32)  # [P] in [0, 128)
-
-    # Counting sort in f32: counts are < 2^24 (exact in f32) and f32
-    # cumsums/gathers stay on the VPU, where s32 ones get SMEM-serialized.
-    onehot = (bkey[:, None] == jnp.arange(_N_BUCKETS, dtype=jnp.int32)[None, :])
-    within = jnp.cumsum(onehot.astype(jnp.float32), axis=0)    # [P, NB]
-    totals = within[-1]                                        # [NB]
-    base = jnp.concatenate(
-        [jnp.zeros((1,), jnp.float32), jnp.cumsum(totals)[:-1]]
-    )
-    rank = jnp.take_along_axis(within, bkey[:, None], axis=1)[:, 0] - 1.0
-    dest = (base[bkey] + rank).astype(jnp.int32)
-    # Invert: order[dest[i]] = i  (dest is a permutation).
-    return jnp.zeros((p,), jnp.int32).at[dest].set(
-        jnp.arange(p, dtype=jnp.int32)
-    )
 
 
 def _volumes_soa(volumes, o, d, hit, rec, lr):
@@ -217,7 +160,7 @@ def make_pool(scene: Scene, cam: camera_mod.Camera, env, key,
     want_spec = config.use_reflection or config.use_refraction
     n_beauty = n * spp
     total_work = n_beauty * (2 if want_spec else 1)
-    p = pool_lanes or min(total_work, POOL_LANES)
+    p = pool_lanes or min(total_work, DEFAULT_POOL_SIZE)
     sample_offset = jnp.asarray(sample_offset, jnp.int32)
     seed = rng.seed_from_key(key)
     # Static identity check: render() passes arange(n_pixels) for full
@@ -229,11 +172,9 @@ def make_pool(scene: Scene, cam: camera_mod.Camera, env, key,
         np.array_equal(np.asarray(pixel_ids), np.arange(n))
     )
 
-    # Accumulators: only the config-enabled buffers ride the loop carry
-    # (each unused carried buffer costs a [n,3] HBM<->VMEM copy pair per
-    # step — measured 2x10.5 ms each at 800x450 on v5e), and each is
-    # pre-padded with one overflow row so masked scatter-adds need no
-    # per-step concatenate/slice copies.
+    # Accumulators: only the config-enabled buffers ride the loop carry,
+    # and each is pre-padded with one overflow row so masked scatter-adds
+    # need no per-step concatenate/slice copies.
     acc_fields = ["beauty"]
     if config.use_albedo:
         acc_fields.append("albedo")
@@ -401,8 +342,7 @@ def make_pool(scene: Scene, cam: camera_mod.Camera, env, key,
 
         # --- respawn finished/idle lanes with fresh work ---
         free = ~s.live | done
-        # f32 cumsum: s32 scans get SMEM-serialized on TPU; P < 2^24.
-        rank = (jnp.cumsum(free.astype(jnp.float32)) - 1.0).astype(jnp.int32)
+        rank = jnp.cumsum(free.astype(jnp.int32)) - 1
         new_w = s.next_work + rank
         can_spawn = free & (new_w < total_work)
         n_spawned = jnp.minimum(
@@ -417,7 +357,7 @@ def make_pool(scene: Scene, cam: camera_mod.Camera, env, key,
         sel3 = lambda fresh, old: soa.where(can_spawn, fresh, old)
         one3 = tuple(jnp.ones((p,), jnp.float32) for _ in range(3))
         zero3 = tuple(jnp.zeros((p,), jnp.float32) for _ in range(3))
-        ns = _PoolState(
+        return _PoolState(
             next_work=s.next_work + n_spawned,
             live=(s.live & active) | can_spawn,
             li=sel(sli, s.li),
@@ -435,36 +375,6 @@ def make_pool(scene: Scene, cam: camera_mod.Camera, env, key,
             acc=acc,
             segments=s.segments + jnp.sum(s.live.astype(jnp.float32)),
             steps=s.steps + 1,
-        )
-        if not config.sort_lanes:
-            return ns
-        # Re-sort lanes for block coherence (feeds the Pallas chunk culling).
-        order = _coherence_order(ns.origin, ns.direction, ns.live)
-        # 1-D (and non-f32) permutes get serialized through SMEM by XLA:TPU;
-        # pack all scalar lane fields into one [P, 8] f32 matrix so the
-        # whole permute is six fast 2-D vector gathers. Ids are < 2^24, so
-        # the f32 round-trip is exact.
-        f32 = jnp.float32
-        packed = jnp.stack([
-            ns.live.astype(f32), ns.li.astype(f32), ns.pix.astype(f32),
-            ns.samp.astype(f32), ns.bounce.astype(f32),
-            ns.is_spec.astype(f32), ns.to_refl.astype(f32),
-            ns.to_refr.astype(f32),
-        ], axis=-1)[order]
-        vec_packed = jnp.stack(
-            list(ns.origin) + list(ns.direction) + list(ns.throughput)
-            + list(ns.radiance) + list(ns.attn0), axis=-1,
-        )[order]
-        vp = lambda k: (vec_packed[:, 3 * k], vec_packed[:, 3 * k + 1],
-                        vec_packed[:, 3 * k + 2])
-        i32 = lambda k: packed[:, k].astype(jnp.int32)
-        return ns._replace(
-            live=packed[:, 0] > 0.5, li=i32(1), pix=i32(2),
-            samp=i32(3), bounce=i32(4),
-            is_spec=packed[:, 5] > 0.5,
-            origin=vp(0), direction=vp(1), throughput=vp(2),
-            radiance=vp(3), attn0=vp(4),
-            to_refl=packed[:, 6] > 0.5, to_refr=packed[:, 7] > 0.5,
         )
 
     return state, cond, body
@@ -486,88 +396,29 @@ def render_pool(scene: Scene, cam: camera_mod.Camera, env, key,
     W·H·spp·max_depth/Δt metric upper-bounds, main.cpp:101-113) and the
     number of pool steps taken.
 
-    On TPU, configs the fused two-kernel step covers (beauty-only
-    full-frame renders of brute-scan scenes — see
-    fused_step.fused_supported) dispatch to ops/fused_step.py: identical
-    per-sample values, ~an order of magnitude less XLA overhead per step.
-
     pixel_ids=None means "the identity full frame" statically — the only
     way a jitted caller (e.g. the progressive session) can assert identity
-    at trace time, where any array argument is a tracer.
-
-    RAYTRACER_TPU_NO_FUSED=1 (env, read at trace time) is the fused-path
-    kill-switch: it forces the unfused pool even on TPU, so one bad fused
-    kernel can never zero out the whole engine (the reference's analogous
-    graceful-degrade: OIDN device -> CPU retry, camera.hpp:586-593).
+    at trace time, where any array argument is a tracer. With
+    n_pixels_local it means the identity pixel WINDOW
+    [pixel_offset, pixel_offset + n_pixels_local), clamped to the frame.
     """
-    import os
-
     import numpy as np
 
-    from . import fused_step
-
-    if pixel_ids is None:
-        identity_pixels = True
-    else:
-        assert n_pixels_local is None, \
-            "pixel window mode requires pixel_ids=None"
-        n = pixel_ids.shape[0]
-        identity_pixels = (
-            isinstance(pixel_ids, np.ndarray)
-            or not isinstance(pixel_ids, jax.Array)
-        ) and n == config.n_pixels and bool(
-            np.array_equal(np.asarray(pixel_ids), np.arange(n))
-        )
-    no_fused = bool(os.environ.get("RAYTRACER_TPU_NO_FUSED"))
-    if (not no_fused and jax.default_backend() == "tpu"
-            and identity_pixels):
-        spp = config.samples_per_pixel
-        chunk = fused_step.fused_spp_chunk(
-            scene, config, env, n_pixels_local=n_pixels_local)
-        fused_kw = dict(pixel_offset=pixel_offset,
-                        n_pixels_local=n_pixels_local)
-        if chunk >= spp:
-            return fused_step.render_pool_fused(
-                scene, cam, env, key, config, sample_offset, pool_lanes,
-                with_stats=with_stats, **fused_kw,
-            )
-        if chunk > 0:
-            # Sample-chunked fused accumulation: each chunk renders a spp
-            # range below the fused work-id cap; lane RNG streams are
-            # (pixel, sample)-keyed so the sum is bit-identical to one
-            # oversized call (and to the unfused pool's sample set).
-            import dataclasses
-
-            out = None
-            segments = jnp.zeros((), jnp.float32)
-            steps = jnp.zeros((), jnp.int32)
-            for off in range(0, spp, chunk):
-                cfg_c = dataclasses.replace(
-                    config, samples_per_pixel=min(chunk, spp - off))
-                res = fused_step.render_pool_fused(
-                    scene, cam, env, key, cfg_c, sample_offset + off,
-                    pool_lanes, with_stats=with_stats, **fused_kw)
-                if with_stats:
-                    res, st = res
-                    segments = segments + st["segments"]
-                    steps = steps + st["steps"]
-                out = res if out is None else jax.tree.map(
-                    jnp.add, out, res)
-            if with_stats:
-                return out, {"segments": segments, "steps": steps}
-            return out
     if pixel_ids is None:
         if n_pixels_local is None:
             pixel_ids = np.arange(config.n_pixels, dtype=np.int32)
         else:
-            # Unfused window fallback: clamped identity slice — same
-            # padding semantics as parallel.render._padded_pixel_ids
-            # (trailing lanes re-render pixel n-1, dropped on unpad).
+            # Clamped identity slice — same padding semantics as
+            # parallel.render._padded_pixel_ids (trailing lanes re-render
+            # pixel n-1, dropped on unpad).
             pixel_ids = jnp.minimum(
                 jnp.asarray(pixel_offset, jnp.int32)
                 + jnp.arange(n_pixels_local, dtype=jnp.int32),
                 config.n_pixels - 1,
             )
+    else:
+        assert n_pixels_local is None, \
+            "pixel window mode requires pixel_ids=None"
 
     state, cond, body = make_pool(
         scene, cam, env, key, config, pixel_ids, sample_offset, pool_lanes

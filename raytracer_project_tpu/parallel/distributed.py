@@ -1,6 +1,6 @@
 """Multi-host process group + collectives for distributed rendering.
 
-TPU-native replacement for the reference's shared-address-space threading
+JAX-native replacement for the reference's shared-address-space threading
 model (/root/reference/camera.hpp:556-573 std::thread fan-out/join,
 main.cpp:245 atomic flags). On a pod slice every host runs this same
 program under `jax.distributed`; pixel tiles shard over the global device

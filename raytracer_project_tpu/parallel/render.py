@@ -1,19 +1,22 @@
 """Multi-chip rendering: pixel-tile sharding over a jax device mesh.
 
-TPU-native replacement for the reference's row-block std::thread fan-out
+JAX-native replacement for the reference's row-block std::thread fan-out
 (/root/reference/camera.hpp:556-573): the image's pixel axis is sharded over
 a 1-D `tiles` mesh axis with `jax.shard_map`; the scene/BVH/materials are
-replicated into every chip's HBM (the scenes are small — the reference
-likewise shares the scene across threads, §SURVEY 5.8).
+replicated into every device's memory (the scenes are small — the
+reference likewise shares the scene across threads, §SURVEY 5.8).
 
 Because all randomness is keyed on (base_key, global pixel id, sample)
-(see core/rng.py), an N-device render is bit-identical to the 1-device
-render — the shard-invariance property the test suite asserts.
+(see core/rng.py), every pixel of an N-device render sums the same
+samples as the 1-device render. On the CPU the two are bit-identical (the
+shard-invariance property the test suite asserts); on a GPU the pool's
+scatter-add order may differ between runs, so they agree to float
+rounding.
 
 Multi-host: parallel/distributed.py owns the process group
 (`init_distributed` -> jax.distributed.initialize, `make_global_mesh`,
 `gather_to_host0`); the same shard_map here runs over the global mesh,
-tiles ride ICI within a slice, statistics reduce with psum
+statistics reduce with psum
 (analyze_sharded), and only the final gather for preview/export crosses
 to host 0. tests/test_distributed.py runs this for real with 2 processes
 x 4 virtual devices.
@@ -47,7 +50,7 @@ def _padded_pixel_ids(n_pixels: int, n_shards: int) -> np.ndarray:
     Padding lanes re-render pixel (n-1); their results are dropped on
     unpad. Wasted lanes <= n_shards - 1. Returned as HOST numpy so
     sharded_accumulate can prove the clamped-identity pattern at trace
-    time and take the fused identity-window fast path.
+    time and render each shard as a pixel window.
     """
     padded = -(-n_pixels // n_shards) * n_shards
     return np.minimum(np.arange(padded, dtype=np.int32), n_pixels - 1)
@@ -86,10 +89,8 @@ def sharded_accumulate(scene, cam, env, key, config: integrator.RenderConfig,
 
     When ids_padded is a host array with the clamped-identity pattern
     (what _padded_pixel_ids builds), each shard renders its slice as an
-    identity pixel WINDOW (pixel_offset = shard * n_local), which is the
-    precondition for the fused two-kernel engine — so multi-chip renders
-    ride the fast path too. Arbitrary id arrays take the legacy
-    gather-based pool.
+    identity pixel WINDOW (pixel_offset = shard * n_local). Arbitrary id
+    arrays take the gather-based pool.
     """
     n_shards = mesh.devices.size
     n = config.n_pixels

@@ -1,6 +1,6 @@
 """Structured engine log + live metrics.
 
-TPU-native equivalent of the reference's AppLog (/root/reference/main.cpp:51-177):
+JAX-native equivalent of the reference's AppLog (/root/reference/main.cpp:51-177):
 timestamped ring log with tag-based severity ([Error]/[Config]/[Render]/
 [System]/[Debug]), a frame-time ring with FPS, and two rays/s throughput
 metrics: rays_per_second() reproduces the reference's W·H·spp·max_depth/Δt

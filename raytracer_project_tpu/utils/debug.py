@@ -2,7 +2,7 @@
 
 The reference relies on scrub-and-continue guards (NaN scrubbed before
 ACES and OIDN, /root/reference/common.hpp:50-55, camera.hpp:601-606) and
-has no detector. The functional TPU build removes data races by
+has no detector. The functional JAX build removes data races by
 construction (SURVEY §5.2); this module adds the missing *detection*
 side: checkify-based NaN traps for debugging runs and a buffer audit
 that localizes non-finite values instead of silently scrubbing them.
@@ -30,19 +30,7 @@ def checked(fn, *, errors=checkify.float_checks):
     cfn = checkify.checkify(fn, errors=errors)
 
     def wrapped(*args, **kwargs):
-        import os
-
-        # checkify cannot transform Pallas kernels; force the pure-XLA
-        # intersector for the checked trace (see intersect_dispatch).
-        prev = os.environ.get("RAYTRACER_TPU_NO_PALLAS")
-        os.environ["RAYTRACER_TPU_NO_PALLAS"] = "1"
-        try:
-            err, out = cfn(*args, **kwargs)
-        finally:
-            if prev is None:
-                os.environ.pop("RAYTRACER_TPU_NO_PALLAS", None)
-            else:
-                os.environ["RAYTRACER_TPU_NO_PALLAS"] = prev
+        err, out = cfn(*args, **kwargs)
         err.throw()
         return out
 

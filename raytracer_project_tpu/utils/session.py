@@ -1,6 +1,6 @@
 """Progressive render session: accumulate, preview, cancel, checkpoint.
 
-TPU-native replacement for the reference's render-thread + dirty-flag state
+JAX-native replacement for the reference's render-thread + dirty-flag state
 machine (/root/reference/main.cpp:1395-1645, camera.hpp:209-343):
 
  * progressive accumulation in sample chunks (the accumulator persists
@@ -98,8 +98,8 @@ class RenderSession:
             self._n_pad = int(self._ids.shape[0])
             # ids ride the CLOSURE (host numpy), not the jit arguments:
             # as a traced argument the clamped-identity pattern could not
-            # be proven at trace time and every step would fall off the
-            # fused identity-window fast path (advisor r4).
+            # be proven at trace time and every step would take the
+            # gather-based pool instead of per-shard pixel windows.
             ids_np = self._ids
             base = jax.jit(
                 lambda sc, ca, en, k, cfg, off: prender.sharded_accumulate(
@@ -111,10 +111,9 @@ class RenderSession:
                 sc, ca, en, k, cfg, off)
         else:
             # Single-device sessions render the identity full frame:
-            # pixel_ids=None asserts that STATICALLY through jit, so the
-            # pooled wavefront's fused-dispatch identity check holds at
-            # trace time (an array argument would be a tracer and the
-            # fused two-kernel step could never engage from here).
+            # pixel_ids=None asserts that STATICALLY through jit (an array
+            # argument would be a tracer), so the pool skips its per-spawn
+            # pixel gather.
             self._ids = None
             self._n_pad = config.n_pixels
             base = jax.jit(
@@ -126,7 +125,7 @@ class RenderSession:
         self.cancel_requested = False
         self._start_time: float | None = None
         self.reset()
-        self.log.render("-Zenith-TPU engine session created (%dx%d)",
+        self.log.render("-Zenith-JAX engine session created (%dx%d)",
                         config.width, config.height)
 
     # -- accumulation -------------------------------------------------------

@@ -3,7 +3,7 @@ real multi-process jax.distributed run (SURVEY §4 / §5.8).
 
 The reference has no multi-node story at all (its "distributed system" is
 std::thread over shared memory, /root/reference/camera.hpp:556-573); these
-tests pin down the TPU build's replacement:
+tests pin down the JAX build's replacement:
   * RenderSession(mesh=...) steps through parallel/render.sharded_accumulate
     and matches the single-device session bit-for-bit,
   * image statistics reduce with collectives (analyze_sharded == the

@@ -45,7 +45,7 @@ ATOL = 2e-4
 def _render(scene, cam, env, cfg):
     # Goldens pin the CHUNKED oracle they were generated with: the pooled
     # engine (the product default) is equivalence-tested against it in
-    # tests/test_wavefront.py / test_fused_step.py, and its per-pixel sums
+    # tests/test_wavefront.py, and its per-pixel sums
     # differ from the chunked path only by float accumulation order —
     # which is exactly what an atol this tight would spuriously flag.
     import dataclasses

@@ -118,13 +118,13 @@ def test_grad_geometry_finite(key):
 @pytest.mark.slow
 def test_grad_showcase_scale_matches_fd(key):
     """Detached-traversal AD at full showcase scale (SURVEY §7/S7): the
-    1,400+-primitive scene keeps its MXU tables and BVH — the traversal
-    runs detached, the chosen-hit t is re-derived differentiably — and
-    jax.grad still matches finite differences."""
+    1,400+-primitive scene keeps its BVH — the traversal runs detached,
+    the chosen-hit t is re-derived differentiably — and jax.grad still
+    matches finite differences."""
     from raytracer_project_tpu.models import presets
 
     scene = presets.showcase_scene(with_bvh=True, with_meshes=True)
-    assert scene.mm is not None  # fast tables stay on in diff mode now
+    assert scene.bvh is not None
     cam = cam_mod.make_camera(
         image_width=16, image_height=12, vfov=30.0,
         lookfrom=(12.0, 2.5, 6.0), lookat=(0.0, 1.0, 0.0),

@@ -123,16 +123,15 @@ def test_instance_move_is_incremental_and_exact():
     m = np.asarray(got.hit)
     np.testing.assert_allclose(np.asarray(got.t)[m], np.asarray(ref.t)[m],
                                rtol=1e-5, atol=1e-5)
-    # Coefficient tables agree with a fresh build of the same geometry
-    # (same block layout -> directly comparable).
-    mm_ref = intersect.build_mm_tables(
-        w._base_scene.spheres, scene2.triangles, w._base_scene.boxes)
-    np.testing.assert_allclose(np.asarray(scene2.mm.tri_coeff),
-                               np.asarray(mm_ref.tri_coeff),
-                               rtol=1e-6, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(scene2.mm.tri_bounds),
-                               np.asarray(mm_ref.tri_bounds),
-                               rtol=1e-6, atol=1e-6)
+    # Triangle tables agree with a full build of the moved world (same
+    # block layout -> directly comparable).
+    w_full, b_full = _world(n_instances=3)
+    w_full.set_transform(1, geom_mod.translate((2.0, 1.7, -0.5)))
+    full = w_full.build(b_full)
+    for k in ("v0", "e1", "e2", "n0", "n1", "n2"):
+        np.testing.assert_allclose(np.asarray(getattr(scene2.triangles, k)),
+                                   np.asarray(getattr(full.triangles, k)),
+                                   rtol=1e-6, atol=1e-6, err_msg=k)
 
 
 def test_blas_shared_and_reused():
@@ -155,7 +154,7 @@ def test_two_level_query_matches_brute():
     scene = w.build(b)
     o, d = _rays(n=256, seed=7)
     got = intersect_instanced(w, scene, o, d, 1e-3)
-    ref = intersect.intersect_brute_mm(scene, o, d, 1e-3)
+    ref = intersect.intersect_brute(scene, o, d, 1e-3)
     np.testing.assert_array_equal(np.asarray(got.hit), np.asarray(ref.hit))
     m = np.asarray(got.hit) & np.asarray(ref.hit)
     tg, tr = np.asarray(got.t)[m], np.asarray(ref.t)[m]

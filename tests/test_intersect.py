@@ -3,6 +3,7 @@ Möller-Trumbore closed forms (sphere.hpp:18-64, triangle.hpp:17-82)."""
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from raytracer_project_tpu.models.geometry import PRIM_SPHERE, PRIM_TRIANGLE
 from raytracer_project_tpu.models.scene import SceneBuilder
@@ -202,98 +203,112 @@ def test_degenerate_dummies_never_hit():
     assert not np.any(hit.hit)
 
 
-def test_mm_matches_classic_brute(rng):
-    """The MXU matmul formulation must agree with the classic candidate
-    kernels: identical hit set / winning primitive, t to f32 regrouping
-    tolerance (intersect_brute is the oracle, hittable_list.hpp:28-41)."""
-    from raytracer_project_tpu.models import presets
-
-    scene = presets.showcase_scene(with_bvh=False, with_meshes=True)
-    assert scene.mm is not None
-    n = 512
-    o = jnp.asarray(rng.normal(0, 8, (n, 3)), jnp.float32)
-    d = jnp.asarray(rng.normal(0, 1, (n, 3)), jnp.float32)
-    h1 = intersect.intersect_brute(scene, o, d, 1e-3)
-    h2 = intersect.intersect_brute_mm(scene, o, d, 1e-3)
-    np.testing.assert_array_equal(np.asarray(h1.hit), np.asarray(h2.hit))
-    m = np.asarray(h1.hit)
-    np.testing.assert_array_equal(
-        np.asarray(h1.prim_type)[m], np.asarray(h2.prim_type)[m]
-    )
-    np.testing.assert_allclose(
-        np.asarray(h1.t)[m], np.asarray(h2.t)[m], rtol=5e-3
-    )
-
-
-# --- SPLITK f32 matmul emulation (intersect.splitk_*) ----------------------
-
-def test_split3_bf16_reconstruction_exact():
-    """hi + mid + lo == x exactly for f32 inputs across magnitudes
-    (24-bit mantissa = 3 x 8-bit bf16 digits)."""
-    rng = np.random.default_rng(11)
-    x = np.concatenate([
-        (rng.normal(size=2048) * np.exp(rng.normal(size=2048) * 8)
-         ).astype(np.float32),
-        np.asarray([0.0, -0.0, 1.0, -1.0, 1e30, -1e30, 1e-30, 3.0,
-                    np.float32(2 ** 24 - 1), 1e6], np.float32),
-    ])
-    hi, mid, lo = intersect.split3_bf16(jnp.asarray(x))
-    recon = (np.asarray(hi, np.float64) + np.asarray(mid, np.float64)
-             + np.asarray(lo, np.float64))
-    np.testing.assert_array_equal(recon.astype(np.float32), x)
+@pytest.mark.parametrize("n_prims,with_bvh,route", [
+    (3, False, "brute"),
+    (3, True, "brute"),
+    (64, False, "brute"),
+    (64, True, "bvh"),
+])
+def test_dispatch_routes_by_count_and_bvh(monkeypatch, n_prims, with_bvh,
+                                          route):
+    """intersect_dispatch reads only the primitive count and BVH presence
+    (the crossover is lowered so a tiny scene can sit on either side)."""
+    monkeypatch.setattr(intersect, "BVH_MIN_PRIMS", 32)
+    b = SceneBuilder()
+    mat = b.materials.lambertian("m")
+    for i in range(n_prims - 2):       # + triangle and box dummy rows
+        b.geometry.add_sphere((float(i), 0.0, 0.0), 0.4, mat)
+    scene = b.build(with_bvh=with_bvh)
+    assert scene.primitive_count == n_prims
+    assert intersect.intersect_dispatch(scene) == route
+    # intersect() follows the decision and agrees with the brute oracle.
+    o = jnp.asarray([[0.0, 0.0, 5.0], [float(n_prims - 3), 0.0, 5.0]])
+    d = jnp.asarray([[0.0, 0.0, -1.0]] * 2)
+    got = intersect.intersect(scene, o, d, 1e-3)
+    ref = intersect.intersect_brute(scene, o, d, 1e-3)
+    np.testing.assert_array_equal(np.asarray(got.hit), np.asarray(ref.hit))
+    np.testing.assert_allclose(np.asarray(got.t), np.asarray(ref.t),
+                               rtol=1e-6)
 
 
-def test_splitk_dot_matches_highest_product_set():
-    """splitk_dot carries exactly HIGHEST's six product groups: against
-    the f64 sum of those six digit products it is accurate to f32
-    rounding, and it beats a single-pass bf16 dot by orders of
-    magnitude."""
-    rng = np.random.default_rng(12)
-    feats = (rng.normal(size=(64, intersect.RAY_FEATURE_DIM))
-             * np.exp(rng.normal(size=(64, 1)) * 3)).astype(np.float32)
-    coeff = (rng.normal(size=(intersect.RAY_FEATURE_DIM, 1, 256))
-             * np.exp(rng.normal(size=(1, 1, 256)) * 3)).astype(np.float32)
-    fk = intersect.splitk_feats(jnp.asarray(feats))
-    ck = intersect.splitk_pack_coeff(jnp.asarray(coeff))
-    got = np.asarray(intersect.splitk_dot(fk, ck.reshape(ck.shape[0], -1)))
+def _box_table(rng, n):
+    """n random affine boxes: world->local rows minv [n, 9], trans [n, 3]."""
+    from raytracer_project_tpu.models import geometry as geo
 
-    # f64 reference over the SAME six digit-product groups.
-    f = intersect.RAY_FEATURE_DIM
-    fk64 = np.asarray(fk, np.float64)
-    ck64 = np.asarray(ck.reshape(ck.shape[0], -1), np.float64)
-    ref = fk64 @ ck64
-    rel = np.abs(got - ref) / np.maximum(np.abs(ref), 1e-20)
-    # Tolerance: f32 accumulation of 96 products (not exact, but tight).
-    assert np.median(rel) < 1e-6
-    assert (rel < 1e-4).mean() > 0.999
-
-    # The full-precision reference (all products, f64 on unsplit f32).
-    full = (feats.astype(np.float64)
-            @ coeff.reshape(f, -1).astype(np.float64))
-    err_splitk = np.abs(got - full)
-    bf16_1pass = (np.asarray(jnp.asarray(feats, jnp.bfloat16), np.float64)
-                  @ np.asarray(jnp.asarray(coeff.reshape(f, -1),
-                                           jnp.bfloat16), np.float64))
-    err_default = np.abs(bf16_1pass - full)
-    # splitk error is ~1e-5x default's on non-degenerate entries
-    # (measured median ratio 1.1e-5; assert a 10x-safe bound).
-    scale = np.abs(full) + 1e-20
-    assert np.median(err_splitk / scale) < 1e-4 * np.median(
-        err_default / scale)
+    minv, trans = [], []
+    for _ in range(n):
+        xf = geo.compose(geo.translate(rng.uniform(-3, 3, 3)),
+                         geo.rotate_y(rng.uniform(0, 90)),
+                         geo.rotate_x(rng.uniform(0, 90)),
+                         geo.scale(rng.uniform(0.3, 2.0, 3)))
+        inv = np.linalg.inv(xf)
+        minv.append(inv[:3, :3].reshape(9))
+        trans.append(inv[:3, 3])
+    return np.asarray(minv), np.asarray(trans)
 
 
-def test_splitk_pack_rows_onehot_fetch_bit_exact():
-    """A one-hot fetch through the digit-split row table reconstructs
-    every stored f32 bit-exactly (the decode kernel's contract)."""
-    rng = np.random.default_rng(13)
-    table = (rng.normal(size=(12, 64))
-             * np.exp(rng.normal(size=(12, 64)) * 6)).astype(np.float32)
-    packed = intersect.splitk_pack_rows(jnp.asarray(table))  # [36, 64]
-    idx = rng.integers(0, 64, size=40)
-    onehot = jnp.asarray(
-        (np.arange(64)[:, None] == idx[None, :]), jnp.bfloat16)
-    prod = jnp.dot(packed, onehot, preferred_element_type=jnp.float32)
-    cols = 12
-    fetched = np.asarray((prod[0:cols] + prod[cols:2 * cols])
-                         + prod[2 * cols:3 * cols])
-    np.testing.assert_array_equal(fetched, table[:, idx])
+def test_box_slab_matches_float64(rng):
+    """box_candidate_t's local-frame transform is an f32 elementwise sum;
+    it must agree with a float64 NumPy slab test at f32 tolerance."""
+    minv, trans = _box_table(rng, 24)
+    o = rng.normal(0, 6, (256, 3))
+    d = rng.normal(0, 1, (256, 3))
+    got = np.asarray(intersect.box_candidate_t(
+        jnp.asarray(minv, jnp.float32), jnp.asarray(trans, jnp.float32),
+        jnp.asarray(o, jnp.float32), jnp.asarray(d, jnp.float32),
+        jnp.full((256,), 1e-3, jnp.float32),
+        jnp.full((256,), 1e30, jnp.float32)))
+    m = minv.reshape(-1, 3, 3)
+    o_l = np.einsum("cij,nj->nci", m, o) + trans[None]
+    d_l = np.einsum("cij,nj->nci", m, d)
+    t0, t1 = (-1.0 - o_l) / d_l, (1.0 - o_l) / d_l
+    tn = np.minimum(t0, t1).max(-1)
+    tf = np.maximum(t0, t1).min(-1)
+    t = np.where(tn > 1e-3, tn, tf)
+    valid = (tn < tf) & (t > 1e-3)
+    ref = np.where(valid, t, 1e30)
+    # Knife-edge rays (entry == exit within f32 resolution) may flip.
+    clear = np.abs(tf - tn) > 1e-3 * np.maximum(np.abs(tf), 1.0)
+    assert valid.sum() > 50
+    np.testing.assert_array_equal((got < 1e30)[clear], valid[clear])
+    both = valid & (got < 1e30)
+    np.testing.assert_allclose(got[both], ref[both], rtol=2e-5, atol=2e-5)
+
+
+def test_box_record_matches_float64(rng):
+    """_box_record_from (local hit point, face normal, UV, tangent through
+    one-hot row sums) against a float64 NumPy evaluation of the same
+    cube.hpp:100-142 rules."""
+    minv, trans = _box_table(rng, 64)
+    # A hit point on a random face of each box: local p_l, world p.
+    face_axis = rng.integers(0, 3, 64)
+    sign = rng.choice([-1.0, 1.0], 64)
+    p_l = rng.uniform(-0.8, 0.8, (64, 3))
+    p_l[np.arange(64), face_axis] = sign
+    m = minv.reshape(-1, 3, 3)
+    p = np.einsum("nij,nj->ni", np.linalg.inv(m), p_l - trans)
+    o = p + rng.normal(0, 1, (64, 3)) * 3.0
+    d = p - o
+    g = np.concatenate([minv, trans, np.zeros((64, 1))], axis=1)
+    f32 = lambda x: jnp.asarray(x, jnp.float32)
+    pp, normal, tangent, _, front, u, v, _ = intersect._box_record_from(
+        f32(g), f32(o), f32(d), jnp.ones((64,), jnp.float32))
+    l = np.einsum("nij,nj->ni", m, p) + trans
+    np.testing.assert_allclose(np.asarray(pp), p, rtol=1e-5, atol=1e-5)
+    face = face_axis * 2 + (sign > 0)
+    out = sign[:, None] * m[np.arange(64), face_axis]
+    out /= np.linalg.norm(out, axis=-1, keepdims=True)
+    fr = np.einsum("ni,ni->n", d, out) < 0.0
+    np.testing.assert_array_equal(np.asarray(front), fr)
+    np.testing.assert_allclose(np.asarray(normal),
+                               np.where(fr[:, None], out, -out), atol=1e-5)
+    fu = np.asarray(intersect._BOX_FACE_U, np.float64)[face]
+    fv = np.asarray(intersect._BOX_FACE_V, np.float64)[face]
+    np.testing.assert_allclose(np.asarray(u), (l * fu).sum(-1) * 0.5 + 0.5,
+                               atol=1e-5)
+    np.testing.assert_allclose(np.asarray(v), (l * fv).sum(-1) * 0.5 + 0.5,
+                               atol=1e-5)
+    tan = np.einsum("ni,nij->nj",
+                    np.asarray(intersect._BOX_FACE_TAN, np.float64)[face], m)
+    tan /= np.linalg.norm(tan, axis=-1, keepdims=True)
+    np.testing.assert_allclose(np.asarray(tangent), tan, atol=1e-5)

@@ -1,6 +1,6 @@
 """Shard-invariance: N-device render == 1-device render, bit for bit.
 
-This is the TPU build's replacement for the reference's absent multi-node
+This is the JAX build's replacement for the reference's absent multi-node
 story (SURVEY §5.8) — the property that makes pixel sharding a pure
 implementation detail.
 """

@@ -68,19 +68,29 @@ def test_pool_matches_chunked_all_buffers(key):
     _assert_buffers_close(r1, r2)
 
 
-def test_pool_sorted_lanes_matches(key):
-    """Coherence re-partition is pure scheduling: identical results."""
+def test_pool_pixel_window_matches_full_frame(key):
+    """The identity pixel-window mode (one shard's slice of the frame, as
+    parallel.render drives it) sums exactly the full frame's samples for
+    those pixels; trailing lanes past the frame clamp to the last pixel."""
     scene = _scene()
-    base = dict(width=24, height=16, samples_per_pixel=4, max_depth=5,
-                env_mode=env_mod.PHYSICAL_SUN)
-    r1 = _render(scene, integrator.RenderConfig(**base), key)
-    r2 = _render(
-        scene,
-        integrator.RenderConfig(**base, wavefront=True, pool_lanes=512,
-                                sort_lanes=True),
-        key,
+    cfg = integrator.RenderConfig(
+        width=12, height=8, samples_per_pixel=3, max_depth=4,
+        env_mode=env_mod.PHYSICAL_SUN, wavefront=True, pool_lanes=256,
     )
-    _assert_buffers_close(r1, r2)
+    cam = _cam(12, 8)
+    env = env_mod.make_environment()
+    full = integrator.accumulate_samples(scene, cam, env, key, cfg, None)
+    n_local, off = 40, 64   # window [64, 104) overhangs the 96-pixel frame
+    win = integrator.accumulate_samples(
+        scene, cam, env, key, cfg, None, pixel_offset=off,
+        n_pixels_local=n_local)
+    ids = np.minimum(np.arange(off, off + n_local), cfg.n_pixels - 1)
+    for name in full._fields:
+        np.testing.assert_allclose(
+            np.asarray(getattr(win, name)),
+            np.asarray(getattr(full, name))[ids],
+            rtol=3e-4, atol=3e-5, err_msg=name,
+        )
 
 
 def test_pool_bigger_than_work(key):

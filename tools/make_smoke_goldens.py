@@ -1,12 +1,11 @@
-"""Generate the CPU goldens the on-device smoke gate compares against.
+"""Generate the CPU goldens chip_smoke.py's goldens phase compares against.
 
 Run from the repo root:  python tools/make_smoke_goldens.py
 
-Produces tests/goldens/smoke_fused_64x36.npz (fused two-kernel engine in
-interpret mode — the exact computation smoke's fused-fast stage runs
-compiled on the TPU) and tests/goldens/smoke_pool_128x72.npz (unfused
-pooled wavefront — smoke's pool-render stage). Regenerate ONLY on an
-intentional image-affecting change, and say so in the commit message.
+Renders chip_smoke.golden_renders() (showcase frames through the pooled
+wavefront, integrator.render) on the CPU backend and stores each image as
+tests/goldens/smoke_<name>.npz. Regenerate ONLY on an intentional
+image-affecting change, and say so in the commit message.
 """
 
 import os
@@ -16,83 +15,23 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 
 import numpy as np
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
 import jax
 
 jax.config.update("jax_platforms", "cpu")
 
-from raytracer_project_tpu.utils import smoke  # noqa: E402
+import chip_smoke  # noqa: E402
 
 
 def main():
-    from raytracer_project_tpu.models import environment as env_mod
-    from raytracer_project_tpu.ops import fused_step, integrator
-
-    gdir = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "tests", "goldens")
-    os.makedirs(gdir, exist_ok=True)
-
-    # fused-fast golden: interpret-mode fused engine, 64x36 @ 2 spp.
-    scene, cam, env = smoke._showcase(64, 36)
-    cfg = integrator.RenderConfig(
-        width=64, height=36, samples_per_pixel=2, max_depth=10,
-        env_mode=env_mod.PHYSICAL_SUN,
-        use_albedo=False, use_normal=False, use_z_depth=False,
-        wavefront=True,
-    )
-    acc = fused_step.render_pool_fused(
-        scene, cam, env, jax.random.PRNGKey(0), cfg, interpret=True)
-    img = np.asarray(acc.beauty, np.float32) / cfg.samples_per_pixel
-    img = img.reshape(36, 64, 3)
-    assert np.isfinite(img).all() and img.max() > 0
-    np.savez_compressed(os.path.join(gdir, "smoke_fused_64x36.npz"),
-                        beauty=img)
-    print(f"smoke_fused_64x36: mean={img.mean():.4f}")
-
-    # fused-features goldens: fog + AOVs + spec passes, interpret mode
-    # (smoke's fused-features stage).
-    from raytracer_project_tpu.models import presets
-
-    scene_f = presets.showcase_scene(with_bvh=True, with_meshes=True,
-                                     use_fog=True, fog_density=0.02)
-    cfg_f = integrator.RenderConfig(
-        width=64, height=36, samples_per_pixel=4, max_depth=10,
-        env_mode=env_mod.PHYSICAL_SUN,
-        use_albedo=True, use_normal=True, use_z_depth=True,
-        use_reflection=True, use_refraction=True, wavefront=True,
-    )
-    acc = fused_step.render_pool_fused(
-        scene_f, cam, env, jax.random.PRNGKey(0), cfg_f, interpret=True)
-    aux = min(cfg_f.aux_samples, cfg_f.samples_per_pixel)
-    for name, div in (("beauty", 4), ("albedo", aux), ("reflection", 4)):
-        img = (np.asarray(getattr(acc, name), np.float32) / div
-               ).reshape(36, 64, 3)
-        assert np.isfinite(img).all()
-        np.savez_compressed(
-            os.path.join(gdir, f"smoke_features_{name}_64x36.npz"),
-            beauty=img)
-        print(f"smoke_features_{name}_64x36: mean={img.mean():.4f}")
-
-    # pool-render golden: unfused pooled wavefront, 128x72 @ 4 spp.
-    scene, cam, env = smoke._showcase(128, 72)
-    cfg = integrator.RenderConfig(
-        width=128, height=72, samples_per_pixel=4, max_depth=10,
-        env_mode=env_mod.PHYSICAL_SUN,
-        use_albedo=False, use_normal=False, use_z_depth=False,
-        wavefront=True,
-    )
-    os.environ["RAYTRACER_TPU_NO_FUSED"] = "1"
-    try:
-        out = jax.jit(integrator.render, static_argnames="config")(
-            scene, cam, env, jax.random.PRNGKey(0), cfg)
-    finally:
-        del os.environ["RAYTRACER_TPU_NO_FUSED"]
-    img = np.asarray(out["beauty"], np.float32)
-    assert np.isfinite(img).all() and img.max() > 0
-    np.savez_compressed(os.path.join(gdir, "smoke_pool_128x72.npz"),
-                        beauty=img)
-    print(f"smoke_pool_128x72: mean={img.mean():.4f}")
+    images = chip_smoke.render_golden_images(chip_smoke.golden_renders())
+    for name, img in images.items():
+        assert np.isfinite(img).all() and img.max() > 0, name
+        path = os.path.join(chip_smoke.GOLDEN_DIR, f"{name}.npz")
+        np.savez_compressed(path, beauty=img)
+        print(f"{name}: {img.shape} mean={img.mean():.4f} -> {path}")
 
 
 if __name__ == "__main__":
